@@ -1,15 +1,15 @@
-"""audio_processing_tools_tpu — TPU-native rain-detection audio framework.
+"""audio_processing_tools_tpu — a JAX rain-detection audio framework.
 
-A ground-up JAX/XLA/Pallas re-design of Arable's ``audio_processing_tools``
+A ground-up JAX/XLA re-design of Arable's ``audio_processing_tools``
 (rain-detection stack for the Mark-3 acoustic disdrometer).  The reference is
 per-file NumPy/SciPy loops on CPU; this framework inverts that design:
 
 * compute operates on ``(batch, time)`` / ``(batch, freq, frames)`` tensors,
-  jit-compiled end-to-end on TPU,
+  jit-compiled end-to-end for the accelerator (an NVIDIA GPU),
 * every causal tracker (noise floors, quantile baselines, IIR state, firmware
   histograms) is a ``jax.lax.scan`` carry,
-* the hot spectrogram path (frame -> window -> rFFT -> power) is a fused
-  Pallas kernel that maps the DFT onto the MXU as a matmul,
+* the hot spectrogram path (frame -> window -> rFFT -> power) is one
+  batched XLA program (cuFFT on the GPU),
 * multi-chip scaling is a ``jax.sharding.Mesh`` over a ``files`` axis with
   XLA collectives for corpus aggregates (no process pools).
 

@@ -3,11 +3,14 @@
 The multi-host entry point for BASELINE config #5 ("fleet backfill:
 multi-host sharded spectrogram + postprocess/host_analysis aggregation").
 
-On a multi-host slice every host runs this same command;
-``jax.distributed.initialize`` wires the hosts, each host loads its shard of
-the key list (DCN only for work-list scatter), and the flagship pipeline
-runs pjit-sharded over the global ``files`` mesh axis with corpus aggregates
-all-reduced over ICI.  On a single host it degrades to the local mesh.
+With ``--distributed`` every process runs this same command (one process
+per card on one host; see :func:`distributed_init_kwargs` for the cards of
+each process across hosts): ``jax.distributed.initialize`` wires the
+processes, each loads
+its stripe of the key list (only the work list is shared; audio bytes never
+leave the process that loaded them), and the flagship pipeline runs sharded
+over the global ``files`` mesh axis with corpus aggregates all-reduced by
+the collectives.  Without it the run uses every local device.
 
 Example:
     python -m audio_processing_tools_tpu.cli.backfill \
@@ -25,7 +28,54 @@ import time
 import numpy as np
 
 
-def main(argv=None) -> None:
+FS = 11162
+
+
+def pipeline_params(clip_rain_min_frames: int = 3) -> dict:
+    """Engine parameters of the backfill step (flagship detector)."""
+    from audio_processing_tools_tpu.config import DEFAULT_MODE_BANDS
+
+    return {"sample_rate": FS,
+            "detector": {"mode_bands": list(DEFAULT_MODE_BANDS)},
+            "clip_rain_min_frames": clip_rain_min_frames}
+
+
+_LOOPBACK = ("localhost", "127.0.0.1", "::1")
+
+
+def distributed_init_kwargs(args) -> dict:
+    """Arguments for ``jax.distributed.initialize``.
+
+    Which local cards a process drives:
+
+    * coordinator on ``localhost``: every process shares this host, so each
+      takes one card, the one of its process id;
+    * ``--local-device-id``: that one card (hand-launched hosts that run
+      several processes each);
+    * otherwise JAX decides: under a cluster launcher (SLURM, Open MPI, ...)
+      each process takes the card of its local rank, and a process launched
+      by hand drives every card of its host (one process per host).
+
+    Virtual CPU devices (``--cpu-devices``) are not cards and are left to
+    the CPU backend.
+    """
+    kw = {
+        "coordinator_address": args.coordinator,
+        "num_processes": args.num_processes,
+        "process_id": args.process_id,
+    }
+    host = (args.coordinator or "").rpartition(":")[0].strip("[]")
+    local = args.local_device_id
+    if local is None and host in _LOOPBACK:
+        local = args.process_id
+    if local is not None and not args.cpu_devices:
+        kw["local_device_ids"] = [int(local)]
+    return kw
+
+
+def main(argv=None):
+    """Run the backfill; returns ``(summary, rows)`` after printing the
+    summary line (and writing ``--out`` when given)."""
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--input-type", default="LocalPath",
                     choices=["LocalPath", "RemotePath", "CsvInput", "KeyList"])
@@ -37,7 +87,7 @@ def main(argv=None) -> None:
     ap.add_argument("--clip-rain-min-frames", type=int, default=3)
     ap.add_argument("--out", default=None, help="parquet output path")
     ap.add_argument("--distributed", action="store_true",
-                    help="call jax.distributed.initialize() (multi-host slice)")
+                    help="call jax.distributed.initialize(), one process per card")
     ap.add_argument("--coordinator", default=None,
                     help="coordinator address for --distributed "
                          "(e.g. localhost:12340; default: auto-detect)")
@@ -45,6 +95,11 @@ def main(argv=None) -> None:
                     help="process count for --distributed (default: auto)")
     ap.add_argument("--process-id", type=int, default=None,
                     help="this process's id for --distributed (default: auto)")
+    ap.add_argument("--local-device-id", type=int, default=None,
+                    help="the one local card this process drives under "
+                         "--distributed (default: the process id when the "
+                         "coordinator is on localhost, else the launcher's "
+                         "local rank or every local card)")
     ap.add_argument("--cpu-devices", type=int, default=None,
                     help="force N virtual CPU devices per process (testing)")
     ap.add_argument("--dsd", action="store_true",
@@ -64,13 +119,13 @@ def main(argv=None) -> None:
     if args.cpu_devices:
         jax.config.update("jax_platforms", "cpu")
     if args.distributed:
-        jax.distributed.initialize(
-            coordinator_address=args.coordinator,
-            num_processes=args.num_processes,
-            process_id=args.process_id,
-        )
+        jax.distributed.initialize(**distributed_init_kwargs(args))
+    from audio_processing_tools_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
 
-    from audio_processing_tools_tpu.config import DEFAULT_MODE_BANDS
+    enable_compile_cache()
+
     from audio_processing_tools_tpu.io.audio import get_keys, get_input_data
     from audio_processing_tools_tpu.parallel import (
         local_rows,
@@ -78,7 +133,6 @@ def main(argv=None) -> None:
         ShardedRainPipeline,
     )
 
-    FS = 11162
     keys = get_keys(args.input_type, test_vector_path=args.path,
                     csv_inp_file=args.csv)
     if args.max_files:
@@ -91,11 +145,8 @@ def main(argv=None) -> None:
     print(f"[host {pid}/{nproc}] {len(keys[pid::nproc])} of {len(keys)} keys")
 
     mesh = make_mesh()
-    pipe = ShardedRainPipeline(
-        {"sample_rate": FS, "detector": {"mode_bands": list(DEFAULT_MODE_BANDS)},
-         "clip_rain_min_frames": args.clip_rain_min_frames},
-        mesh,
-    )
+    pipe = ShardedRainPipeline(pipeline_params(args.clip_rain_min_frames),
+                               mesh)
 
     t0 = time.time()
     rows = []
@@ -126,7 +177,7 @@ def main(argv=None) -> None:
                 "clip_is_rain": bool(is_rain[i]),
                 "clip_rain_fraction": float(frac[i]),
             })
-        # replicated GLOBAL aggregates (ICI/Gloo all-reduce) — identical on
+        # replicated GLOBAL aggregates (all-reduced) — identical on
         # every host; silence-pad rows contribute zero rain frames
         agg = out["aggregates"]
         agg_totals["total_rain_frames"] += int(np.asarray(agg["total_rain_frames"]))
@@ -164,6 +215,7 @@ def main(argv=None) -> None:
         out_path = args.out if nproc == 1 else f"{args.out}.host{pid}"
         df.to_parquet(out_path, index=False)
         print(f"wrote {len(df)} rows -> {out_path}", file=sys.stderr)
+    return summary, rows
 
 
 if __name__ == "__main__":

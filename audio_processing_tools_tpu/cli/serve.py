@@ -289,6 +289,7 @@ class _Batcher:
         self._empty = queue.Empty
         self.batched_calls = 0      # vmapped group dispatches (telemetry)
         self.batched_requests = 0   # requests served through them
+        self.fallback_groups = 0    # batched calls that failed and reran
         t = threading.Thread(target=self._loop, daemon=True,
                              name="apt-serve-batcher")
         t.start()
@@ -335,11 +336,15 @@ class _Batcher:
                     box["state"], box["fields"] = ns, f
                     ev.set()
                 return
-            except Exception:
-                # genuine fallback: re-run each request through the
-                # per-request path so one poisoned group member cannot
-                # fail its neighbours
-                pass
+            except Exception as e:
+                # re-run each request through the per-request path so one
+                # poisoned group member cannot fail its neighbours; count
+                # and report it, since a batched path that always fails
+                # would otherwise serve everything unbatched in silence
+                self.fallback_groups += 1
+                print(f"serve: batched call of {len(items)} requests failed "
+                      f"({type(e).__name__}: {e}); rerunning them one by one",
+                      file=sys.stderr, flush=True)
         for st, row, ev, box in items:
             try:
                 box["state"], box["fields"] = self.svc.process(st, row)
@@ -599,10 +604,15 @@ def main(argv=None) -> int:
             print(json.dumps(reply), flush=True)
         return 0
 
-    if args.cpu:
-        import jax
+    import jax
 
+    if args.cpu:
         jax.config.update("jax_platforms", "cpu")
+    from audio_processing_tools_tpu.utils.compile_cache import (
+        enable_compile_cache,
+    )
+
+    enable_compile_cache()
 
     from audio_processing_tools_tpu.config import DEFAULT_MODE_BANDS
 

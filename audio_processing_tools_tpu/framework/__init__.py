@@ -1,7 +1,7 @@
 """Framework layer: processor protocol + batch orchestration.
 
 Public API parity with the reference ``audio_processing_framework`` /
-``processors`` modules, plus a TPU-native batched execution path: processors
+``processors`` modules, plus a batched device execution path: processors
 that implement ``run_batch`` get whole padded ``(B, N)`` batches in one
 device program instead of per-file process-pool calls.
 """

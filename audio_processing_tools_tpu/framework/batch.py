@@ -1,5 +1,5 @@
 """Batch orchestrator — API parity with ``process_audio_batches_v2``
-(reference ``audio_processing_framework.py:580-899``), TPU-native execution.
+(reference ``audio_processing_framework.py:580-899``), batched device execution.
 
 Where the reference fans files out to a ``ProcessPoolExecutor``, this
 orchestrator keeps one process and vectorizes on device: processors that

@@ -4,7 +4,7 @@ Device audio lands in two buckets (prod / test) under two key layouts
 (``audio/<device>/<loc>/<unix_ts>`` legacy JSON-chunk uploads,
 ``raw_audio/<device>/.../<date>_rain_xxx`` binary uploads).  The fetch layer
 handles per-key bucket fallback, a local file cache, header-only byte-range
-reads (bytes 0-39), and a threaded multi-key prefetch pool that, in the TPU
+reads (bytes 0-39), and a threaded multi-key prefetch pool that, in the device
 pipeline, feeds the host decode stage ahead of ``device_put``.
 """
 

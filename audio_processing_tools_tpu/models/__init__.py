@@ -1,4 +1,4 @@
-"""Engine layer: the reference's DSP "model families", TPU-native.
+"""Engine layer: the reference's DSP "model families", accelerator-native.
 
   spectral_noise   — STFT detector + noise suppressor (the flagship engine)
   frame_classifier — per-frame rain/noise/uncertain decision

@@ -3,7 +3,7 @@
 Re-design of ``BandNoiseEstimator`` / ``NoiseFrameDetector``
 (reference ``edge/band_noise_estimator.py``).  The reference is strictly
 sequential per frame (persistent IIR ``zi``, ring buffer, hold counters,
-EMAs); on TPU it becomes:
+EMAs); on the accelerator it becomes:
 
   * the IIR filters run ONCE over the whole clip as parallel-scan ``sosfilt``
     with carried state — valid because the streaming adapter requires

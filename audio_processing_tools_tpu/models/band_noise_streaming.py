@@ -2,7 +2,7 @@
 
 The reference exposes the estimator as stateful per-frame classes meant for
 MCU deployment loops (``edge/band_noise_estimator.py:106-298, 312-410,
-513-986``). The TPU rebuild runs the same algorithm as one ``lax.scan``
+513-986``). The JAX rebuild runs the same algorithm as one ``lax.scan``
 (``models/band_noise.py``); this module restores the per-frame class surface
 on top of the chunked-scan core, so sensor-style integrations can keep
 calling ``est.process_frame(frame)`` — each call advances the same carried

@@ -88,7 +88,8 @@ def _mode_flux(P_band: jnp.ndarray, mode_masks: np.ndarray,
         d2 = jnp.maximum(P_band[:, 2:] - P_band[:, :-2], 0.0)
         flux = flux.at[:, 2:].set(d2)
     sel = jnp.asarray(mode_masks.astype(np.float32))       # (n_modes, K)
-    # HIGHEST: TPU default matmul precision is bf16; flux feeds threshold
+    # HIGHEST: a default-precision float32 matmul may run in TF32 on the
+    # GPU; flux feeds threshold
     # decisions, so the band reduce must be exact f32
     mode_flux_by_mode = jax.lax.dot(
         sel, flux, precision=jax.lax.Precision.HIGHEST)     # (n_modes, T)

@@ -2,7 +2,7 @@
 
 Config #3 is "mel-filterbank + dB band-energy features -> rain/no-rain
 labeler".  This module is the pipeline consumer of :mod:`ops.mel`: the
-fused power spectrogram feeds the Slaney mel filterbank (one MXU matmul),
+power spectrogram feeds the Slaney mel filterbank (one matmul),
 band dB energies are reduced over the rain/mode region, and the decision
 statistic is the 2-frame positive flux of that band energy — the mel-domain
 analogue of the detector's mode-band spectral flux

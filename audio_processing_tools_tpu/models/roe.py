@@ -1,4 +1,4 @@
-"""Legacy "RoE" harmonic-novelty rain classifier, TPU-native.
+"""Legacy "RoE" harmonic-novelty rain classifier, accelerator-native.
 
 Re-design of ``edge/dsp_rain_detection.py`` (the notebook-converted legacy
 algorithm; public entry ``rain_detection_algo``, ``:2566-2575``).  The
@@ -127,8 +127,7 @@ def _local_average_sorted3(x: jnp.ndarray, M: int) -> jnp.ndarray:
     if win_len < 3:
         win_len = 3
     # +-M windows as 2M+1 shifted pad+slice views (+inf padding marks the
-    # out-of-range positions) — the old (L, 2M+1) index gather serializes
-    # on TPU
+    # out-of-range positions) instead of an (L, 2M+1) index gather
     pos_inf = jnp.asarray(jnp.inf, x.dtype)
     xp = jnp.concatenate([
         jnp.full(x.shape[:-1] + (M,), pos_inf, x.dtype), x,
@@ -141,8 +140,8 @@ def _local_average_sorted3(x: jnp.ndarray, M: int) -> jnp.ndarray:
         # rank-selection instead of top_k (a partial sorting network): the
         # stable rank of each window entry is one (K, K) comparison plane
         # (ties index-broken), and each of the 3 order statistics is an
-        # exact one-hot masked sum — measured 22% faster than top_k on the
-        # RoE geometry (same trick as the band-noise quantile).  Mean in a
+        # exact one-hot masked sum (same trick as the band-noise
+        # quantile).  Mean in a
         # FIXED ascending scalar order so it cannot be re-fused into a
         # reassociating reduce.
         idx = jnp.arange(K, dtype=jnp.int32)
@@ -361,8 +360,8 @@ def _analyse_chunk(chunk: jnp.ndarray, cfg: RoeConfig,
     sos = butter_sos(8, [op_lo / nyq, op_hi / nyq], "bandpass")
     audio = sosfilt(sos, chunk.astype(jnp.float32))
 
-    # only |S| is consumed downstream, so the power-only Pallas kernel can
-    # feed it (|S| = sqrt(|S|^2); XLA rfft fallback off-TPU is identical math)
+    # only |S| is consumed downstream, so the power-only spectrogram can
+    # feed it (|S| = sqrt(|S|^2))
     mag = jnp.sqrt(spectrogram_power(audio, n_fft=N, hop=H, center=True))
     F, T = mag.shape
 

@@ -1,6 +1,6 @@
 """Spectral noise suppressor + rain detector — the flagship engine.
 
-TPU-native re-design of ``SpectralNoiseProcessor``
+Accelerator-native re-design of ``SpectralNoiseProcessor``
 (reference ``edge/rain_signal_processor.py:257-1198``): one traced function
 ``waveform -> {frame_class, confidences, noise PSD, gain, S_hat, metrics}``,
 jit-compiled per config, vmappable over a batch of clips and shardable over a
@@ -217,8 +217,8 @@ class SpectralNoiseEngine:
                 x_proc = sosfiltfilt(sos, x)
 
         # The complex STFT is only needed when spectra / reconstructed audio
-        # leave the engine; the pure detector/metrics path uses the fused
-        # Pallas spectrogram kernel (power only) on TPU.
+        # leave the engine; the pure detector/metrics path needs only the
+        # power spectrogram.
         needs_complex = bool(
             cfg.return_spectra or cfg.compute_output_audio
             or cfg.return_filtered_audio
@@ -595,7 +595,7 @@ class RainDetectorProcessor:
         """Device-batched path: one vmapped program for a (B, N) batch.
 
         Returns ``[(metrics, state), ...]`` per clip — the orchestrator's
-        ``run_batch`` contract.  This is the TPU replacement for the
+        ``run_batch`` contract.  This is the batched device replacement for the
         reference's per-file ProcessPoolExecutor fan-out.
         """
         import time as _time

@@ -213,8 +213,8 @@ class StreamingRainDetector:
         # ---- causal STFT power over this chunk ----
         xa = jnp.concatenate([state["raw_tail"], chunk])
         # len(xa) = (T_c + 1) * hop with n_fft = 2 * hop, so frame_signal
-        # yields exactly T_c frames via its reshape/concat fast path (the old
-        # (T_c, n_fft) index gather serializes on TPU)
+        # yields exactly T_c frames via its reshape/concat fast path (no
+        # (T_c, n_fft) index gather)
         frames = frame_signal(xa, n_fft, hop)
         w = jnp.asarray(hann_window(n_fft))
         spec = jnp.fft.rfft(frames * w, axis=-1)

@@ -6,7 +6,7 @@ Python loops, all analysis windows are grouped by their (static) length and
 processed as batched tensors — Hilbert envelopes via batched FFT, peak
 picking via the vectorized peak ops, crest/kurtosis via batched reductions.
 Masking by the stage-1 rain mask happens at the end (compute-everywhere,
-select-by-mask — the TPU trade).
+select-by-mask — the static-shape trade).
 
 Window = ``prev_context_hops`` hops + current frame + ``future_context_hops``
 hops, clipped to the signal ([t-128, t+256] -> 384 samples by default).

@@ -488,7 +488,7 @@ ChunkResult analyse_chunk(const std::vector<double>& chunk, const RoeParams& P) 
     return res;
 }
 
-std::string g_version = "tpu-native-roe 0.1.0 (audio_processing_tools_tpu)";
+std::string g_version = "apt-native-roe 0.1.0 (audio_processing_tools_tpu)";
 
 }  // namespace
 

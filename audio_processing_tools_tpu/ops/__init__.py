@@ -1,4 +1,4 @@
-"""Batched JAX/Pallas DSP primitives (the kernel layer).
+"""Batched JAX DSP primitives (the kernel layer).
 
 Everything in this package is a pure function over arrays, jit-safe, and
 vmappable over a leading batch axis.  Numerical semantics intentionally match

@@ -165,8 +165,7 @@ def extract_raw_spectral_features(
     thresh = float(np.clip(rolloff_fraction, 0.0, 1.0)) * shape_total
     roll_idx = jnp.argmax(cum >= thresh[None, :], axis=0)
     sf = jnp.asarray(shape_freqs, jnp.float32)
-    # one-hot picks from the constant frequency table (a traced gather
-    # serializes per frame on TPU)
+    # one-hot picks from the constant frequency table (no traced gather)
     rows = jnp.arange(sf.shape[0])
 
     def _pick_freq(idx):
@@ -265,7 +264,7 @@ def clip_spectral_occupancy(
         else:
             masks.append((freqs >= lo) & (freqs < hi))
     sel = jnp.asarray(np.stack(masks).astype(np.float32))  # (n_bands, F)
-    # HIGHEST: TPU default matmul precision is bf16
+    # HIGHEST: no reduced-precision (TF32) matmul
     band_power = jax.lax.dot(sel, raw_power.astype(jnp.float32),
                              precision=jax.lax.Precision.HIGHEST)  # (n_bands, T)
 

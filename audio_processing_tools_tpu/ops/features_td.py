@@ -93,11 +93,8 @@ def td_input_signal(
 def _pick(a: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """``a[t, idx[t]]`` as a one-hot reduction.
 
-    ``take_along_axis``/gather on the minor axis lowers to a serial
-    dynamic-slice loop on TPU (the row count serializes); a one-hot mask +
-    sum is pure VPU work.  Swapping the gathers in this module for one-hot
-    picks took the (128, 871, 32) peak-feature stage from ~16.7 ms to VPU
-    noise on v5e.
+    A one-hot mask + sum in place of ``take_along_axis`` on the minor axis:
+    elementwise work with no gather.
     """
     j = jnp.arange(a.shape[-1])
     return jnp.sum(jnp.where(j[None, :] == idx[:, None], a, 0.0), axis=-1)
@@ -234,8 +231,8 @@ def block_energy_peak_features(
 
     # windows via framing (reshape/concat), not an index gather: window t is
     # env[t*stride : t*stride + W] with an m-block apron on both sides so the
-    # pre/post sums below never leave the window.  TPU gathers serialize; all
-    # indexing here is static padding + framing + range masks.
+    # pre/post sums below never leave the window.  All indexing here is
+    # static padding + framing + range masks.
     W = blocks_per_frame
     m = max(1, int(post_pre_blocks))
     b0 = np.arange(T) * stride

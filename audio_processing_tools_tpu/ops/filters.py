@@ -1,4 +1,4 @@
-"""IIR (biquad cascade) filtering on TPU.
+"""IIR (biquad cascade) filtering as batched device programs.
 
 The reference leans on ``scipy.signal.butter(...) -> sosfiltfilt/sosfilt``
 everywhere: the engine pre-filter (``edge/rain_signal_processor.py:347-364,
@@ -6,7 +6,7 @@ everywhere: the engine pre-filter (``edge/rain_signal_processor.py:347-364,
 the streaming estimator with persistent ``zi`` (``edge/band_noise_estimator.py
 :781-830``), and the RoE bandpass (``edge/dsp_rain_detection.py:373-376``).
 
-TPU-native design:
+Accelerator-native design:
 
 * **Design stays on host.** Butterworth design is a tiny trace-time
   computation producing constant SOS coefficients — done in NumPy (no scipy
@@ -308,20 +308,18 @@ def _sosfilt_section_pscan(x: jnp.ndarray, *, a1: float, a2: float,
          elementwise.
 
     All 2x2 affine algebra is expanded to scalar mul/adds on purpose: these
-    run as exact-float32 VPU ops on TPU, whereas ``einsum``/``dot`` forms are
-    MXU matmuls whose TPU default precision is bfloat16 — which injected
-    ~2e-3 relative error per section into the filtered signal (found by
-    `tests/test_reference_differential.py` on the time-domain detector).
-    Scalar FMAs are also faster here: the operands are 2-vectors, far below
-    MXU tile size.
+    run as exact-float32 elementwise ops, whereas ``einsum``/``dot`` forms are
+    matmuls whose default precision on an accelerator may be reduced
+    (bfloat16 or TF32), which injects ~2e-3 relative error per section into
+    the filtered signal.  Scalar FMAs also suit the shape: the operands are
+    2-vectors, far below any matmul tile.
 
     The lean (``need_zf=False``) path unrolls both scans 8x: each step is
-    ~30 scalar VPU ops on small tensors, so the compiled while-loop's
-    per-iteration overhead (~2.5 us on v5e) dominates; unrolling cuts the
-    measured section pass from ~1.8 ms to ~0.1 ms at (B=128, T=112k).
-    Unrolling lets XLA regroup FMAs differently per compilation (ulp-level
-    shifts), so the streaming ``zi`` path stays un-unrolled — chunked and
-    whole-clip streaming compilations are pinned bit-identical.
+    ~30 scalar ops on small tensors, so the compiled while-loop's
+    per-iteration overhead dominates.  Unrolling lets XLA regroup FMAs
+    differently per compilation (ulp-level shifts), so the streaming ``zi``
+    path stays un-unrolled — chunked and whole-clip streaming compilations
+    are pinned bit-identical.
     """
     xT = jnp.moveaxis(x, axis, -1)
     shape = xT.shape
@@ -449,7 +447,7 @@ def _cascade_state_space(sos: np.ndarray):
 
 
 def _cascade_matmul_constants(sos: np.ndarray, block: int):
-    """Trace-time constants that turn the cascade into MXU matmuls.
+    """Trace-time constants that turn the cascade into matmuls.
 
     With in-block index ``i`` and block-start state ``z`` (the state before
     the block's first sample):
@@ -521,15 +519,15 @@ def _sosfilt_cascade_matmul(sos: np.ndarray, x: jnp.ndarray,
                             reverse: bool = False,
                             return_zf: bool = False,
                             boundary: str = "scan"):
-    """Whole-cascade ``sosfilt`` (y only) as two MXU matmuls + a tiny scan.
+    """Whole-cascade ``sosfilt`` (y only) as two matmuls + a tiny scan.
 
     The lean path of :func:`sosfilt`.  Versus the blocked parallel scan this
     emits NO per-sample prefix arrays: HBM traffic is one read of ``x`` per
     matmul plus one write of ``y``, and the only sequential work left is the
     block-boundary state recurrence (``ceil(T/block)`` steps on a (..., 2S)
-    carry).  All matmuls run at ``Precision.HIGHEST`` (full-f32 MXU passes):
-    the bf16 default injected ~2e-3/section error (caught by the
-    reference-differential suite; see ``_sosfilt_section_pscan``).
+    carry).  All matmuls run at ``Precision.HIGHEST`` (full float32): a
+    reduced-precision matmul injects ~2e-3/section error (see
+    ``_sosfilt_section_pscan``).
 
     ``zi``: (..., n_sections, 2) initial conditions (scipy layout).
 
@@ -654,7 +652,7 @@ def sosfilt_matmul_zf(sos: np.ndarray, x: jnp.ndarray, zi: jnp.ndarray,
     """``sosfilt`` returning ``(y, zf)`` through the lean cascade-matmul path.
 
     Same scipy semantics as ``sosfilt(sos, x, zi=zi)`` but with the whole
-    cascade as two constant MXU matmuls + the block-boundary scan (no
+    cascade as two constant matmuls + the block-boundary scan (no
     per-sample prefix arrays), plus an exact final-state export.  Float32
     output differs from the per-section parallel scan only in FMA grouping
     (same accuracy class vs the float64 oracle).  Chunk-invariant when every
@@ -678,7 +676,7 @@ def sosfilt(sos: np.ndarray, x: jnp.ndarray, zi: jnp.ndarray | None = None,
           when given, returns ``(y, zf)`` like scipy.
     return_zf : override the "zi given -> return final state" default;
           pass False when the caller discards ``zf`` (e.g. ``sosfiltfilt``) —
-          the pass then emits half the prefix arrays (HBM-bound on TPU).
+          the pass then emits half the prefix arrays (memory-bound).
 
     Runs each section as an O(log T)-depth associative scan.
     """
@@ -697,8 +695,6 @@ def sosfilt(sos: np.ndarray, x: jnp.ndarray, zi: jnp.ndarray | None = None,
         # data-independent, so the filter collapses to two constant matmuls
         # (in-block impulse response + block-start pickup) and a tiny
         # block-boundary scan — no per-sample prefix arrays at all.
-        # Measured on v5e at (B=128, T=112k): 10.2 ms -> ~1.5 ms for the
-        # order-4 filtfilt (both directions).
         return _sosfilt_cascade_matmul(sos, y, zi_arr, axis=axis)
 
     zf = []

@@ -4,7 +4,7 @@ The reference builds frame views with ``as_strided`` in several places
 (``edge/feature_extraction.py:221-231``, ``edge/dsp_rain_detection.py:638-654``,
 ``edge/band_noise_estimator.py:42-53``).  JAX has no strided views; a static
 index gather compiles to an efficient XLA gather/reshape and keeps shapes
-static for the TPU compiler.
+static for the compiler.
 """
 
 from __future__ import annotations
@@ -44,9 +44,8 @@ def frame_signal(x: jnp.ndarray, frame_len: int, hop: int) -> jnp.ndarray:
     if frame_len % hop == 0:
         # frame_len = m * hop: frame t is m adjacent hop-blocks, so framing is
         # reshape + m shifted block views + concat — pure BW-bound data
-        # movement.  The generic path below is a (T, frame_len) index gather,
-        # which XLA:TPU lowers to a serial gather loop (measured ~10x slower
-        # than this at the engine's 256/128 geometry).
+        # movement.  The generic path below is a (T, frame_len) index
+        # gather.
         m = frame_len // hop
         nb = (t + m - 1)  # blocks needed; (t+m-1)*hop <= n always holds
         blocks = x[..., : nb * hop].reshape(x.shape[:-1] + (nb, hop))

@@ -3,7 +3,7 @@
 librosa-parity semantics (``librosa.filters.mel`` defaults): Slaney-style
 mel scale (linear below 1 kHz, log above), triangular filters normalized by
 Slaney area normalization.  The filterbank is a trace-time constant, so
-applying it is one MXU matmul over the spectrogram — the canonical
+applying it is one matmul over the spectrogram — the canonical
 "band-energy reducer" of the feature layer, generalizing the detector's
 ``mode_bands`` machinery to a learnable/mel frequency axis.
 """
@@ -100,13 +100,12 @@ def mel_spectrogram(x: jnp.ndarray, *, sr: int = 11162, n_fft: int = 256,
                     fmax: Optional[float] = None, htk: bool = False,
                     log: bool = False) -> jnp.ndarray:
     """Mel power spectrogram ``(..., n_mels, T)``; one matmul after the
-    fused power spectrogram.  ``log=True`` returns dB (10 log10)."""
-    # Pallas transposed-DFT kernel on TPU, XLA rfft elsewhere (<1e-5 apart)
+    power spectrogram.  ``log=True`` returns dB (10 log10)."""
     P = spectrogram_power(x, n_fft=n_fft, hop=hop)  # (..., F, T)
     fb = jnp.asarray(
         mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk).astype(np.float32)
     )
-    # HIGHEST: TPU default matmul precision is bf16; the filterbank reduce
+    # HIGHEST: no reduced-precision (TF32) matmul; the filterbank reduce
     # must hold the <1e-5 parity bound
     M = jnp.einsum("mf,...ft->...mt", fb, P,
                    precision=jax.lax.Precision.HIGHEST)

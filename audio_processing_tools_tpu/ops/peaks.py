@@ -1,7 +1,7 @@
 """Vectorized peak detection (scipy ``find_peaks`` family, device-friendly).
 
 scipy's peak utilities are pointer-walking C loops over dynamic-length
-outputs; on TPU we need static shapes.  The re-design returns fixed-size
+outputs; a jitted program needs static shapes.  The re-design returns fixed-size
 boolean masks / per-position arrays:
 
   * :func:`local_maxima` — strict local maxima incl. scipy's plateau rule.
@@ -30,9 +30,8 @@ def local_maxima(x: jnp.ndarray) -> jnp.ndarray:
     Matches ``scipy.signal._local_maxima_1d``: for plateaus, the midpoint
     sample is marked.  Interior points only (first/last never peaks).
 
-    Gather/scatter-free formulation (TPU serializes both — the old
-    take-along + ``.at[].max`` scatter version measured 28 ms/step on the
-    RoE geometry, ~60% of that engine's device time): every position m
+    Gather/scatter-free formulation (no take-along, no ``.at[].max``
+    scatter): every position m
     recovers its plateau ``[s, e]`` from two "nearest strict change"
     associative scans whose encodings carry the change's direction, then
     is marked elementwise iff the entering change was a rise, the leaving
@@ -127,7 +126,7 @@ def peak_widths_rel(x: jnp.ndarray, is_peak: jnp.ndarray,
     has_l = jnp.any(le, axis=-1)
     i_l = jnp.max(jnp.where(le, jj, -1), axis=-1)
     i_l_c = jnp.maximum(i_l, 0)
-    # one-hot picks instead of take_along_axis (serial gather loop on TPU);
+    # one-hot picks instead of take_along_axis;
     # the (..., n, n) comparison planes already exist in this function
     x_il = jnp.sum(jnp.where(jj == i_l_c[..., :, None], xj, 0.0), axis=-1)
     x_il1 = jnp.sum(

@@ -1,224 +1,15 @@
-"""Fused Pallas spectrogram kernel: frame -> window -> DFT -> power.
+"""The detector front-end's power spectrogram: frame -> window -> rFFT -> |.|^2.
 
-The north-star fusion (BASELINE.md): one kernel maps the STFT power
-spectrogram onto the MXU by expressing the windowed rFFT as a matmul.
-
-Key idea: for ``hop = n_fft/2`` the frames of a signal are adjacent pairs of
-hop-sized blocks, so a (n_fft, T) frame matrix is just a transpose+shift of
-the input tile — no gather.  The window folds into the DFT matrix, which
-carries ONLY the ``F = 1 + n_fft/2`` rFFT bins (cos rows stacked on sin
-rows, each padded to the 8-sublane granule ``FP``):
-
-    W_t = [diag-rows of w*cos(bin r) ; w*sin(bin r)]   (2 FP, n_fft)
-
-so   Y = W_t @ frames_t  -> (2 FP, T)  on the MXU, and
-    P[f, t] = Y[f, t]^2 + Y[FP + f, t]^2
-
-lands directly in the (F, T) layout every consumer wants — no full-bin
-intermediate, no post-hoc slice/transpose, and half the naive FLOPs (the
-mirrored upper half of the DFT is never computed).
-
-FLOP cost is ~6x a radix-2 FFT, but the work lands on the 128x128 systolic
-array instead of the VPU and fuses windowing + power, so the kernel is HBM-
-bound: read ~4 B/sample, write F*4/hop B/sample.
-
-This kernel requires ``hop * 2 == n_fft`` (the stack's 256/128 default).
-``spectrogram_power`` handles librosa-parity center padding and falls back
-to the XLA rFFT path on non-TPU backends or non-matching geometry.
+Every engine's power-only path (the classifier, RoE, mel, the sequence-
+parallel shards) calls :func:`spectrogram_power`; the paths that need the
+complex spectrum call :func:`~audio_processing_tools_tpu.ops.stft.stft`.
+It is :func:`~audio_processing_tools_tpu.ops.stft.stft_power`, plain
+``jax.numpy`` left to XLA, which hands the batched 256-point real FFT to
+cuFFT on the GPU.
 """
 
 from __future__ import annotations
 
-from functools import partial
-
-import numpy as np
-import jax
-import jax.numpy as jnp
-
-from audio_processing_tools_tpu.ops.windows import hann_window
 from audio_processing_tools_tpu.ops.stft import stft_power
 
-
-def _dft_matrix(n_fft: int) -> np.ndarray:
-    """(n_fft, 2*n_fft) fused window+DFT matrix [w*cos | w*sin], float32."""
-    k = np.arange(n_fft)[:, None].astype(np.float64)
-    f = np.arange(n_fft)[None, :].astype(np.float64)
-    ang = -2.0 * np.pi * k * f / n_fft
-    w = hann_window(n_fft, dtype=np.float64)[:, None]
-    cat = np.concatenate([w * np.cos(ang), w * np.sin(ang)], axis=1)
-    return cat.astype(np.float32)
-
-
-def _rbins_pad(n_fft: int) -> int:
-    """rFFT bin count padded to the 8-sublane granule."""
-    return (1 + n_fft // 2 + 7) // 8 * 8
-
-
-def _dft_matrix_t(n_fft: int) -> np.ndarray:
-    """(2*FP, n_fft) transposed window+DFT matrix, rFFT bins only.
-
-    Row ``r < F`` is ``w * cos`` of bin ``r``; row ``FP + r`` is ``w * sin``
-    of bin ``r`` (``F = 1 + n_fft//2`` real bins, ``FP`` the 8-aligned pad).
-    Only the bins the product consumes are computed — the mirrored upper half
-    of the DFT never touches the MXU.
-    """
-    FP = _rbins_pad(n_fft)
-    F = 1 + n_fft // 2
-    r = np.arange(F)[:, None].astype(np.float64)
-    k = np.arange(n_fft)[None, :].astype(np.float64)
-    ang = -2.0 * np.pi * r * k / n_fft
-    w = hann_window(n_fft, dtype=np.float64)[None, :]
-    out = np.zeros((2 * FP, n_fft))
-    out[:F] = w * np.cos(ang)
-    out[FP : FP + F] = w * np.sin(ang)
-    return out.astype(np.float32)
-
-
-def _power_kernel(a_ref, b_ref, w_ref, out_ref):
-    """One (FP, frames_tile) power tile, already in (bins, frames) layout.
-
-    Frame t = (hop-block t, hop-block t+1); the two halves arrive transposed
-    (hop on sublanes, frames on lanes) and the concat folds into the matmul:
-    ``W_t @ frames_t == W_t[:, :hop] @ A + W_t[:, hop:] @ B``
-    (two MXU matmuls; Mosaic cannot concatenate sublane-offset slices).
-    ``W_t`` carries only the rFFT bins — cos rows on top, sin rows below —
-    so the output needs no post-hoc slice/transpose: power lands directly in
-    the (..., F, T) layout every consumer wants.
-    """
-    hop = a_ref.shape[-2]
-    # HIGHEST precision: full-f32 MXU passes so the spectrogram meets the
-    # <1e-5 parity bound (default bf16 passes deviate ~2e-3)
-    y = jnp.dot(w_ref[:, :hop], a_ref[0], preferred_element_type=jnp.float32,
-                precision=jax.lax.Precision.HIGHEST)
-    y = y + jnp.dot(w_ref[:, hop:], b_ref[0], preferred_element_type=jnp.float32,
-                    precision=jax.lax.Precision.HIGHEST)
-    FP = y.shape[0] // 2
-    out_ref[0] = y[:FP] ** 2 + y[FP:] ** 2
-
-
-@partial(jax.jit, static_argnames=("n_fft", "hop", "frames_tile", "interpret"))
-def _pallas_power(x_blocks: jnp.ndarray, n_fft: int, hop: int,
-                  frames_tile: int = 256, interpret: bool = False) -> jnp.ndarray:
-    """x_blocks: (B, n_blocks, hop) with n_blocks = T + 1; returns (B, FP, T_pad).
-
-    Callers slice to ``[:, :1 + n_fft//2, :T]``.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    B, n_blocks, _ = x_blocks.shape
-    T = n_blocks - 1
-    n_tiles = -(-T // frames_tile)
-    Tp = n_tiles * frames_tile
-    FP = _rbins_pad(n_fft)
-
-    # (B, hop, n_blocks): one 4 B/sample transpose up front replaces the
-    # full-bin (T, n_fft) output transpose of the naive layout (~2.3x larger)
-    xT = jnp.swapaxes(x_blocks, -1, -2)
-    if Tp + 1 > n_blocks:
-        xT = jnp.pad(xT, ((0, 0), (0, 0), (0, Tp + 1 - n_blocks)))
-    # frame t = (block t, block t+1) as lane-shifted views
-    first = xT[:, :, :Tp]
-    second = xT[:, :, 1 : Tp + 1]
-
-    W = jnp.asarray(_dft_matrix_t(n_fft))
-
-    out = pl.pallas_call(
-        _power_kernel,
-        out_shape=jax.ShapeDtypeStruct((B, FP, Tp), jnp.float32),
-        grid=(B, n_tiles),
-        in_specs=[
-            pl.BlockSpec((1, hop, frames_tile), lambda b, t: (b, 0, t),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, hop, frames_tile), lambda b, t: (b, 0, t),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((2 * FP, n_fft), lambda b, t: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec(
-            (1, FP, frames_tile), lambda b, t: (b, 0, t),
-            memory_space=pltpu.VMEM,
-        ),
-        interpret=interpret,
-    )(first, second, W)
-    return out
-
-
-def _kernel_shape_ok(n_fft: int, hop: int) -> bool:
-    return hop * 2 == n_fft and n_fft % 128 == 0
-
-
-def _kernel_applicable(n_fft: int, hop: int) -> bool:
-    return _kernel_shape_ok(n_fft, hop) and jax.default_backend() == "tpu"
-
-
-def spectrogram_power(x: jnp.ndarray, n_fft: int = 256, hop: int = 128,
-                      center: bool = True, use_pallas: bool | None = None,
-                      interpret: bool = False) -> jnp.ndarray:
-    """|STFT|^2 -> (..., 1 + n_fft//2, T); fused Pallas path on TPU.
-
-    Matches :func:`audio_processing_tools_tpu.ops.stft.stft_power` to float32
-    matmul precision.  ``use_pallas=None`` auto-selects *per lowering
-    platform* (``jax.lax.platform_dependent``): the Pallas path on TPU, the
-    XLA rfft path elsewhere — so the same traced engine works when jitted
-    for the CPU backend inside a TPU-default process (the bench's CPU/TPU
-    agreement canary does exactly that; Pallas cannot lower on CPU).
-    """
-    if use_pallas is None:
-        if _kernel_shape_ok(n_fft, hop):
-            from jax.lax import platform_dependent
-
-            return platform_dependent(
-                jnp.asarray(x, jnp.float32),
-                tpu=lambda v: _spectrogram_pallas(
-                    v, n_fft=n_fft, hop=hop, center=center,
-                    interpret=interpret),
-                default=lambda v: stft_power(v, n_fft=n_fft, hop=hop,
-                                             center=center),
-            )
-        return stft_power(x, n_fft=n_fft, hop=hop, center=center)
-    if not use_pallas:
-        return stft_power(x, n_fft=n_fft, hop=hop, center=center)
-    return _spectrogram_pallas(x, n_fft=n_fft, hop=hop, center=center,
-                               interpret=interpret)
-
-
-def _spectrogram_pallas(x: jnp.ndarray, *, n_fft: int, hop: int,
-                        center: bool, interpret: bool) -> jnp.ndarray:
-    # The kernel builds frame t as hop-block t ++ block t+1, which is only
-    # the STFT framing when n_fft == 2*hop (and Mosaic needs lane-aligned
-    # blocks).  Forcing use_pallas=True with any other geometry would
-    # silently return wrong spectra — refuse instead.
-    if not _kernel_shape_ok(n_fft, hop):
-        raise ValueError(
-            f"Pallas spectrogram kernel requires n_fft == 2*hop and "
-            f"n_fft % 128 == 0; got n_fft={n_fft}, hop={hop}. "
-            f"Use use_pallas=False (XLA rfft path) for this geometry."
-        )
-    x = jnp.asarray(x, jnp.float32)
-    squeeze = x.ndim == 1
-    if squeeze:
-        x = x[None, :]
-    orig_batch = x.shape[:-1]
-    x = x.reshape((-1, x.shape[-1]))
-    n = x.shape[-1]
-
-    if center:
-        pad = n_fft // 2
-        x = jnp.pad(x, ((0, 0), (pad, pad)))
-        n = n + 2 * pad
-    T = 1 + (n - n_fft) // hop
-
-    # hop-aligned blocks; frame t = blocks[t] ++ blocks[t+1]
-    n_blocks = T + 1
-    need = n_blocks * hop
-    if need > n:
-        x = jnp.pad(x, ((0, 0), (0, need - n)))
-    x_blocks = x[:, : n_blocks * hop].reshape(x.shape[0], n_blocks, hop)
-
-    P_full = _pallas_power(x_blocks, n_fft, hop, interpret=interpret)
-    P = P_full[:, : 1 + n_fft // 2, :T]  # (B, F, T) straight from the kernel
-    P = P.reshape(orig_batch + P.shape[1:])
-    if squeeze:
-        P = P[0]
-    return P
+spectrogram_power = stft_power

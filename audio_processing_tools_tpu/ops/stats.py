@@ -70,8 +70,8 @@ def masked_quantile(x: jnp.ndarray, valid: jnp.ndarray, q, axis: int = -1
     lo = jnp.floor(h).astype(jnp.int32)
     hi = jnp.ceil(h).astype(jnp.int32)
     frac = h - lo.astype(x.dtype)
-    # one-hot picks: take_along_axis lowers to a serial gather loop on TPU,
-    # and this runs inside the band-noise estimator's per-frame scan.  The
+    # one-hot picks in place of take_along_axis (this runs inside the
+    # band-noise estimator's per-frame scan).  The
     # masked sum is exact (one 1.0 multiply, all other terms exactly 0).
     idx = jnp.arange(xs.shape[-1], dtype=jnp.int32)
     v_lo = jnp.sum(jnp.where(idx == lo[..., None], xs, 0.0), axis=-1)

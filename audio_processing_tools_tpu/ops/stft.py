@@ -113,8 +113,7 @@ def istft(
     if n_fft % hop == 0:
         # Overlap-add as m = n_fft/hop shifted pad+add views: frame t's
         # k-th hop-chunk lands on output block t+k, so the sum over k of
-        # block-shifted chunk planes IS the OLA — no scatter (XLA:TPU
-        # lowers scatter-add to a serial loop over the T*n_fft indices).
+        # block-shifted chunk planes IS the OLA — no scatter-add.
         m = n_fft // hop
         n_blocks = T - 1 + m
         chunks = frames.reshape(batch_shape + (T, m, hop))

@@ -1,8 +1,8 @@
 """Causal noise trackers as ``lax.scan`` carries.
 
-All per-frame scans are unrolled 8x: step bodies are a handful of VPU ops
-on small tensors, so compiled-loop per-iteration overhead dominates on TPU;
-unrolling only regroups the same float ops (results unchanged).
+All per-frame scans are unrolled 8x: step bodies are a handful of
+elementwise ops on small tensors, so compiled-loop per-iteration overhead
+dominates; unrolling only regroups the same float ops (results unchanged).
 
 These are the reference's sequential per-frame Python loops, re-expressed as
 scans so they jit, vmap over files/bands, and stay on device:
@@ -213,7 +213,7 @@ def causal_time_median(X: jnp.ndarray, L: int) -> jnp.ndarray:
     if L % 2 == 0:
         L += 1
     T = X.shape[-1]
-    # windows as L shifted pad+slice views (gathers serialize on TPU);
+    # windows as L shifted pad+slice views (no gather);
     # window column k holds X[t - (L-1) + k], left-invalid marked +inf
     big = jnp.asarray(jnp.finfo(X.dtype).max, dtype=X.dtype)
     Xp = jnp.concatenate(

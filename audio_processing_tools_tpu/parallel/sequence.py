@@ -64,9 +64,7 @@ def sequence_sharded_stft_power(
         # are dropped by the caller)
         halo = jnp.where(idx == n_dev - 1, jnp.zeros_like(halo), halo)
         xa = jnp.concatenate([x_loc, halo])
-        # len(xa) = n_loc + (n_fft - hop) -> exactly n_loc/hop causal frames;
-        # spectrogram_power = Pallas MXU kernel per shard on TPU, identical
-        # rfft elsewhere (and gather-free framing either way)
+        # len(xa) = n_loc + (n_fft - hop) -> exactly n_loc/hop causal frames
         Pw = spectrogram_power(xa, n_fft=n_fft, hop=hop, center=False)
         return jnp.swapaxes(Pw, 0, 1)  # (T_loc, F)
 
@@ -114,7 +112,7 @@ def batch_sequence_sharded_stft_power(
         halo = jax.lax.ppermute(head, seq_axis, perm)
         halo = jnp.where(idx == seq_n - 1, jnp.zeros_like(halo), halo)
         xa = jnp.concatenate([x_loc, halo], axis=-1)
-        # n_loc/hop causal frames per stream; Pallas kernel per shard on TPU
+        # n_loc/hop causal frames per stream
         return spectrogram_power(xa, n_fft=n_fft, hop=hop, center=False)
 
     fn = shard_map(

@@ -1,7 +1,7 @@
 """Parameter tuning: grid search, classifier wrappers, native/device bridges.
 
 Parity with the reference ``edge/parameter_tuning/`` package, with a
-device-vectorized sweep path: on TPU, parameter grids whose knobs are
+device-vectorized sweep path: on the device, parameter grids whose knobs are
 traced values (thresholds, gates) run as a single ``vmap`` over combos.
 """
 

@@ -84,7 +84,7 @@ class rain_cl_config_param_t(Structure):
     ]
 
 
-_NATIVE_NAME = "libdsp_tpu_native.so"
+_NATIVE_NAME = "libdsp_native.so"
 
 
 def _native_dir() -> str:

@@ -2,7 +2,7 @@
 
 The reference tunes detector thresholds by exhaustive grid search
 (``edge/parameter_tuning/grid_search.py``: ProcessPool over combos, ~1
-min / 1000 test vectors).  On TPU the decision layer is pure elementwise
+min / 1000 test vectors).  On the device the decision layer is pure elementwise
 math over precomputed flux features (see
 :func:`..tuning.grid_search.grid_search_vmapped`), which means it is also
 *differentiable* once the hard gates are relaxed to sigmoids.  This module

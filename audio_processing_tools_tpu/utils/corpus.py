@@ -144,7 +144,7 @@ def make_hard_corpus(
     intermittent drizzle, rain masked by wind, and gust-front FP bait.
 
     Sized so the default detector lands strictly BELOW 100% accuracy — the
-    canary detects threshold drift in either direction (VERDICT r2 weak #3).
+    canary detects threshold drift in either direction.
     """
     counts = {kind: per_class for kind in HARD_CLIP_CLASSES}
     return make_labeled_corpus(seed, fs=fs, seconds=seconds, counts=counts)
@@ -169,3 +169,22 @@ def write_corpus_dir(
             f.write(write_mark_audio_file(pcm, sample_rate=fs, timestamp=i))
         paths.append(path)
     return paths
+
+
+def repeat_alac_mark(data: bytes, reps: int) -> bytes:
+    """A MARK ALAC file whose audio is ``reps`` back-to-back copies of the
+    audio in ``data`` (an ALAC MARK file).
+
+    ALAC packets decode independently, so repeating the BER-framed packet
+    run tiles the PCM; a duplicated leading MARK header and any bytes after
+    the last packet are kept once.  Lets a short recorded fixture stand in
+    for a long ALAC clip where no encoder is installed.
+    """
+    from audio_processing_tools_tpu.io.alac_native import split_ber_packets
+    from audio_processing_tools_tpu.io.mark import HEADER_SIZE, MARK_MAGIC
+
+    payload = data[HEADER_SIZE:]
+    start = HEADER_SIZE if payload[:4] == MARK_MAGIC else 0
+    end = start + sum(3 + len(p) for p in split_ber_packets(payload))
+    return (data[:HEADER_SIZE] + payload[:start]
+            + payload[start:end] * int(reps) + payload[end:])

@@ -1,7 +1,7 @@
 """Profiling / tracing (SURVEY §5 aux-subsystem parity).
 
 The reference instruments wall-clock per processor (``latency_s``) and run
-totals in ``DataFrame.attrs``; the TPU equivalent keeps that API (framework
+totals in ``DataFrame.attrs``; the JAX equivalent keeps that API (framework
 layer) and adds device-level tracing via ``jax.profiler``.
 """
 

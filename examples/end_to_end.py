@@ -20,10 +20,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(out_dir: str = "/tmp/apt_demo") -> None:
     import jax
 
-    # CPU by default: the dashboards pull complex spectra to the host,
-    # which some experimental TPU transports don't support. Set
-    # APT_EXAMPLE_TPU=1 to run the compute on an attached accelerator.
-    if os.environ.get("APT_EXAMPLE_TPU") != "1":
+    # CPU by default; set APT_EXAMPLE_ACCEL=1 to run the compute on an
+    # attached accelerator.
+    if os.environ.get("APT_EXAMPLE_ACCEL") != "1":
         jax.config.update("jax_platforms", "cpu")
 
     from audio_processing_tools_tpu.config import DEFAULT_MODE_BANDS

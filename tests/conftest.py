@@ -1,9 +1,8 @@
 """Test configuration: force a virtual 8-device CPU mesh.
 
-Real TPU hardware in CI is a single chip behind an experimental plugin; all
-unit + sharding tests run against an 8-device CPU mesh
-(``xla_force_host_platform_device_count``), per the project driver contract.
-The TPU benchmark path is exercised by ``bench.py`` instead.
+All unit + sharding tests run on the CPU backend against an 8-device
+virtual mesh (``xla_force_host_platform_device_count``).  What needs the
+GPU runs in ``chip_smoke.py`` and ``bench.py`` on the card.
 """
 
 import os
@@ -35,7 +34,7 @@ _SLOW = {
                              "test_backfill_single_process"),
     "test_band_noise.py": ("test_chunked_streaming_matches_full",),
     "test_bench_contract.py": ("test_bench_quick_schema",
-                               "test_tpu_checks_smoke_cpu"),
+                               "test_chip_checks_smoke_cpu"),
     "test_compat_shims.py": ("test_dsp_integ_two_pass",),
     "test_dsd_transform.py": ("test_dsp_classification_from_audio_keys"
                               "_fake_db",

@@ -100,8 +100,7 @@ def test_evaluation_csv_outputs(results, tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# HARD tier: near-threshold corpus (VERDICT r2: the easy corpus saturates at
-# 100%, so it can only catch regressions that flip an easy clip).  These
+# HARD tier: near-threshold corpus.  These
 # classes sit at the default config's decision boundary: the pinned confusion
 # is deliberately NOT perfect, so drift in either direction moves it.
 # ---------------------------------------------------------------------------
@@ -160,7 +159,7 @@ def test_hard_corpus_confusion_pinned(hard_predictions):
 
 
 # ---------------------------------------------------------------------------
-# BEAT tier (VERDICT r4 item 2): the shipped opt-in profile
+# BEAT tier: the shipped opt-in profile
 # tuning.profiles.TUNED_ACCURACY_V1 — found by sweeping FROM the
 # reference-default thresholds — must be strictly better than the defaults
 # on the hard corpus, better on a held-out seed, and exactly as good on the

@@ -94,7 +94,7 @@ def _run_distributed(corpus_dir, out, nproc, extra=()):
 
 @pytest.mark.parametrize("nproc", [2, 4])
 def test_backfill_distributed(corpus_dir, tmp_path, nproc):
-    """nproc real processes (VERDICT r4 item 6: past 2); sharded work list,
+    """nproc real processes; sharded work list,
     lockstep collectives, disjoint shards, distributed == single-process."""
     out = tmp_path / "dist.parquet"
     summaries = _run_distributed(corpus_dir, out, nproc)
@@ -124,11 +124,9 @@ def test_backfill_distributed(corpus_dir, tmp_path, nproc):
 
 
 def test_backfill_distributed_dsd(tmp_path):
-    """2-process distributed run with --dsd (VERDICT r4 item 3: the DSD
-    minute-histogram path was the one pipeline family with no multi-process
-    witness).  61 s clips -> 2 DSD minutes each (full + trailing partial);
-    the per-minute integer vectors must be EXACTLY equal to the
-    single-process run's, per file."""
+    """2-process distributed run with --dsd.  61 s clips -> 2 DSD minutes
+    each (full + trailing partial); the per-minute integer vectors must be
+    EXACTLY equal to the single-process run's, per file."""
     clips, labels, kinds = make_labeled_corpus(
         seed=5, seconds=61.0, counts={"rain_heavy": 1, "noise": 1},
     )

@@ -38,7 +38,7 @@ def test_bench_quick_schema(bench_json):
     # unavailable; the quick CPU path has all of them)
     for key in ("suppress_value", "mel_value", "stream_value"):
         assert isinstance(j[key], (int, float)) and j[key] > 0, key
-    assert j["backend"] in ("cpu", "tpu")
+    assert j["backend"] in ("cpu", "gpu")
     assert isinstance(j["runs"], list) and len(j["runs"]) >= 1
 
 
@@ -49,11 +49,10 @@ def test_bench_quick_stream_value_is_realtime_capable(bench_json):
 
 
 # ---------------------------------------------------------------------------
-# FULL-run contract (VERDICT r3 item 8): bench.py asserts its own artifact
-# before printing, so a silent sub-bench regression (e.g. a missing ALAC
-# shim nulling alac_value) FAILS the run instead of producing a "valid"
-# JSON.  The validator is exercised here directly; the last real hardware
-# artifact is also checked against it.
+# FULL-run contract: bench.py asserts its own artifact before printing, so a
+# silent sub-bench regression (e.g. a missing ALAC shim nulling alac_value)
+# FAILS the run instead of producing a "valid" JSON.  The validator is
+# exercised here directly.
 
 
 def _bench_module():
@@ -76,12 +75,11 @@ def _complete_artifact():
         "stream_unbatched_value", "stream_audio_value",
         "roe_loop_audio_sec_per_sec", "band_noise_loop_audio_sec_per_sec",
         "stream_lowlat_p50_ms", "stream_lowlat_p99_ms",
-        "pallas_max_rel_dev",
-        "engine_cpu_tpu_frame_agreement", "suppress_cpu_tpu_y_rel_dev",
-        "band_noise_cpu_tpu_frame_agreement", "roofline_audio_sec_per_sec_est",
+        "engine_cpu_accel_frame_agreement", "suppress_cpu_accel_y_rel_dev",
+        "band_noise_cpu_accel_frame_agreement", "spectrogram_vs_numpy_f64_rel",
     )}
-    vals["backend"] = "tpu"
-    vals["tpu_checks"] = {"ok": True, "failures": []}
+    vals["backend"] = "gpu"
+    vals["chip_checks"] = {"ok": True, "failures": []}
     return vals
 
 
@@ -92,7 +90,7 @@ def test_full_artifact_validator_accepts_complete():
 @pytest.mark.parametrize("broken", [
     "alac_value", "suppress_value", "mel_value", "stream_value",
     "device_loop_audio_sec_per_sec", "hbm_program_bytes",
-    "engine_cpu_tpu_frame_agreement", "band_noise_cpu_tpu_frame_agreement",
+    "engine_cpu_accel_frame_agreement", "band_noise_cpu_accel_frame_agreement",
     "roe_loop_audio_sec_per_sec", "band_noise_loop_audio_sec_per_sec",
     "stream_lowlat_p50_ms", "stream_lowlat_p99_ms",
 ])
@@ -105,21 +103,21 @@ def test_full_artifact_validator_rejects_null_field(broken):
 
 
 def test_full_artifact_validator_requires_tpu_checks():
-    """On TPU the on-chip verification suite is part of the number of
-    record (VERDICT r4 item 1): a missing sub-object or any failed bound
-    sinks the artifact."""
+    """On any accelerator the on-card verification suite is part of the
+    number of record: a missing sub-object or any failed bound sinks the
+    artifact."""
     bench = _bench_module()
     art = _complete_artifact()
-    del art["tpu_checks"]
-    with pytest.raises(AssertionError, match="tpu_checks"):
+    del art["chip_checks"]
+    with pytest.raises(AssertionError, match="chip_checks"):
         bench.validate_full_artifact(art)
-    art["tpu_checks"] = {"ok": False,
-                         "failures": ["roe_drop_count_abs_diff=1"]}
-    with pytest.raises(AssertionError, match="on-chip verification failed"):
+    art["chip_checks"] = {"ok": False,
+                          "failures": ["roe_drop_count_abs_diff=1"]}
+    with pytest.raises(AssertionError, match="on-card verification failed"):
         bench.validate_full_artifact(art)
     # CPU artifacts (e.g. --quick promoted by mistake) don't carry it
     art2 = {k: v for k, v in _complete_artifact().items()
-            if k not in ("tpu_checks",)}
+            if k not in ("chip_checks",)}
     art2["backend"] = "cpu"
     bench.validate_full_artifact(art2)
 
@@ -133,13 +131,13 @@ def test_full_artifact_validator_no_subbench_optout():
         bench.validate_full_artifact(art)
 
 
-def test_tpu_checks_smoke_cpu():
-    """The on-chip verification script is part of the bench's number of
-    record (bench.py embeds run_checks() on TPU); its *logic* must stay
-    runnable — a drifted import or check body would otherwise only be
-    discovered at round end on hardware."""
+def test_chip_checks_smoke_cpu():
+    """The on-card verification script is part of the bench's number of
+    record (bench.py embeds run_checks() on an accelerator); its *logic*
+    must stay runnable — a drifted import or check body would otherwise
+    only be discovered on the card."""
     out = subprocess.run(
-        [sys.executable, os.path.join(REPO, "tools", "tpu_checks.py"),
+        [sys.executable, os.path.join(REPO, "tools", "chip_checks.py"),
          "--smoke-cpu"],
         capture_output=True, text=True, timeout=900, cwd=REPO,
     )
@@ -148,23 +146,6 @@ def test_tpu_checks_smoke_cpu():
     assert j["ok"] is True and j["failures"] == []
     # the fields bench.py's validator relies on
     assert j["backend"] == "cpu"
-    assert "sosfilt_tpu_vs_scipy_rel" in j
-
-
-def test_latest_hardware_artifact_is_complete():
-    """The most recent driver-recorded BENCH_r*.json must satisfy the
-    full-run contract (guards against committing a regressed artifact)."""
-    import glob
-    import json as _json
-
-    arts = sorted(glob.glob(os.path.join(REPO, "BENCH_r*.json")))
-    if not arts:
-        pytest.skip("no driver artifacts present")
-    with open(arts[-1]) as f:
-        payload = _json.load(f)
-    j = payload.get("parsed", payload)
-    # artifacts recorded before the r5 contract lack the newer fields
-    # (tpu_checks, lowlat profile); only enforce once one carrying them exists
-    if "stream_lowlat_p50_ms" not in j:
-        pytest.skip(f"{arts[-1]} predates the full-run contract")
-    _bench_module().validate_full_artifact(j)
+    assert "sosfilt_accel_vs_scipy_rel" in j
+    for key in _bench_module().ACCEL_RUN_REQUIRED:
+        assert key in j, key

@@ -1,5 +1,5 @@
 """The examples/ scripts are the user-facing front door; run each one for
-real so a signature drift can't ship silently (VERDICT r4 weak item 6).
+real so a signature drift can't ship silently.
 
 Each example self-forces the CPU platform and asserts its own outcome
 (detection timing / tuning improvement / accuracy 1.0), so a plain

@@ -34,7 +34,7 @@ def _harmonic_rain(rng, seconds=10, fn=500.0, drops=80):
 
 def test_version(lib):
     v = get_version(lib)
-    assert "tpu-native-roe" in v
+    assert "apt-native-roe" in v
 
 
 def test_native_detects_rain(lib, rng):

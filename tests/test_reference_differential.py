@@ -40,15 +40,15 @@ from audio_processing_tools_tpu.models.band_noise import (  # noqa: E402
     NoiseFrameDetectorConfig,
 )
 from audio_processing_tools_tpu.models.band_noise_streaming import (  # noqa: E402
-    BandNoiseEstimator as TpuBandNoiseEstimator,
-    NoiseFrameDetector as TpuNoiseFrameDetector,
+    BandNoiseEstimator as AptBandNoiseEstimator,
+    NoiseFrameDetector as AptNoiseFrameDetector,
 )
 from audio_processing_tools_tpu.models.frame_classifier import (  # noqa: E402
     detect_rain_over_time,
 )
 from audio_processing_tools_tpu.models.time_domain import (  # noqa: E402
-    TimeDomainDetectorConfig as TpuTimeDomainDetectorConfig,
-    TimeDomainRainDetector as TpuTimeDomainRainDetector,
+    TimeDomainDetectorConfig as AptTimeDomainDetectorConfig,
+    TimeDomainRainDetector as AptTimeDomainRainDetector,
 )
 from audio_processing_tools_tpu.ops.features_spec import (  # noqa: E402
     clip_spectral_occupancy,
@@ -216,7 +216,7 @@ def test_noise_frame_detector_matches_reference(clip):
     ref_det = ref_bne.NoiseFrameDetector(
         ref_bne.NoiseFrameDetectorConfig(), subframes_per_frame=S
     )
-    got_det = TpuNoiseFrameDetector(
+    got_det = AptNoiseFrameDetector(
         NoiseFrameDetectorConfig(), subframes_per_frame=S
     )
     n_frames = clip.size // frame_len
@@ -267,7 +267,7 @@ def test_band_noise_estimator_matches_reference(clip, variant):
     ref_cfg = ref_bne.BandNoiseEstimatorConfig(dtype=np.float64, **overrides)
     got_cfg = BandNoiseEstimatorConfig(**overrides)
     ref_outs = _stream_reference(ref_cfg, clip.astype(np.float64), frame_len)
-    est = TpuBandNoiseEstimator(got_cfg)
+    est = AptBandNoiseEstimator(got_cfg)
     for t, ref_out in enumerate(ref_outs):
         got_out = est.process_frame(
             clip[t * frame_len : (t + 1) * frame_len]
@@ -354,7 +354,7 @@ def test_band_noise_estimator_matches_reference_fuzzed_config(draw):
         det=NoiseFrameDetectorConfig(**det_over), **est_over
     )
     ref_outs = _stream_reference(ref_cfg, clip.astype(np.float64), frame_len)
-    est = TpuBandNoiseEstimator(got_cfg)
+    est = AptBandNoiseEstimator(got_cfg)
     for t, ref_out in enumerate(ref_outs):
         got_out = est.process_frame(clip[t * frame_len : (t + 1) * frame_len])
         assert bool(got_out.fft_rain_frame) == bool(ref_out.fft_rain_frame), (
@@ -382,7 +382,7 @@ def test_time_domain_detector_matches_reference(clip):
     params = {"sample_rate": FS}
     ref_det = ref_tdd.TimeDomainRainDetector()
     ref_out = ref_det.process(clip, sr=FS)
-    got_det = TpuTimeDomainRainDetector()
+    got_det = AptTimeDomainRainDetector()
     got_out = got_det.process(clip, sr=FS)
 
     np.testing.assert_array_equal(
@@ -412,7 +412,7 @@ def test_time_domain_detector_stage1_mask_matches_reference(clip, rng):
     ref_out = ref_tdd.TimeDomainRainDetector().process(
         clip, stage1_is_rain=mask, sr=FS
     )
-    got_out = TpuTimeDomainRainDetector().process(
+    got_out = AptTimeDomainRainDetector().process(
         clip, stage1_is_rain=mask, sr=FS
     )
     np.testing.assert_array_equal(
@@ -460,7 +460,7 @@ def test_time_domain_detector_matches_reference_fuzzed_config(draw):
     ref_det = ref_tdd.TimeDomainRainDetector(
         ref_tdd.TimeDomainDetectorConfig(**{**over, "mode_bands": ref_mb})
     )
-    got_det = TpuTimeDomainRainDetector(TpuTimeDomainDetectorConfig(**over))
+    got_det = AptTimeDomainRainDetector(AptTimeDomainDetectorConfig(**over))
     ref_out = ref_det.process(clip, sr=FS)
     got_out = got_det.process(clip, sr=FS)
     np.testing.assert_array_equal(

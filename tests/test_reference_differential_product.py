@@ -1,7 +1,7 @@
 """Corpus-wide PRODUCT-level parity: the reference makes the same calls.
 
 The module/engine differential suites prove >=98% frame agreement per clip;
-this suite closes the last tier (VERDICT r3 item 1): every clip of BOTH
+this suite closes the last tier: every clip of BOTH
 labeled corpora (24-clip easy + 32-clip hard) runs through the REFERENCE
 ``RainDetectorProcessor.run`` clip aggregation
 (``edge/rain_signal_processor.py:1205-1344``, executed via the librosa

@@ -4,13 +4,12 @@ Walks the reference package's top-level public functions/classes and asserts
 each name resolves — by actually IMPORTING every module of this package and
 ``getattr``-ing the name — to a live callable (for reference functions) or
 class (for reference classes).  A name that is merely *mentioned* somewhere
-(a string, a comment, an unrelated import alias) does not pass; VERDICT r2
-flagged the previous regex-union audit for exactly that weakness.
+(a string, a comment, an unrelated import alias) does not pass; the
+previous regex-union audit had exactly that weakness.
 
 The two notebook-converted modules are exempt: their ~80 near-duplicate
-internals are deliberately deduplicated into ``models/roe.py`` (VERDICT r1
-called this an improvement), with the public entry points
-(``rain_detection_algo``, wrappers, batch APIs) covered.
+internals are deliberately deduplicated into ``models/roe.py``, with the
+public entry points (``rain_detection_algo``, wrappers, batch APIs) covered.
 """
 
 import ast

@@ -335,7 +335,7 @@ def test_serve_rejects_odd_payload_length(server):
 
 
 # ---------------------------------------------------------------------------
-# --emit-audio: stream in -> denoised stream out (VERDICT r3 item 3)
+# --emit-audio: stream in -> denoised stream out
 
 from audio_processing_tools_tpu.cli.serve import MAGIC_AUDIO  # noqa: E402
 
@@ -531,3 +531,63 @@ def test_client_mulaw_wire_end_to_end(server, tmp_path):
     assert replies[-1]["eos"] is True and replies[-1]["rain_frames"] > 0
     with pytest.raises(ValueError):
         next(stream_file(str(wav), host=host, port=port, wire="adpcm"))
+
+
+# ---------------------------------------------------------------------------
+# batched-path failures are counted, and the client path stays off JAX
+
+
+class _FlakyBatchService:
+    """Per-request path works; the batched path always fails."""
+
+    def process(self, state, samples):
+        return state + 1, {"frames": int(samples.size)}
+
+    def process_many(self, states, rows):
+        raise RuntimeError("batched path broken")
+
+
+def test_batcher_counts_and_logs_fallback(capsys):
+    from audio_processing_tools_tpu.cli.serve import _Batcher
+
+    batcher = _Batcher(_FlakyBatchService(), window_ms=300.0)
+    out = [None, None]
+
+    def submit(i):
+        out[i] = batcher.submit(i, np.zeros(128))
+
+    threads = [threading.Thread(target=submit, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=30)
+    assert out == [(1, {"frames": 128}), (2, {"frames": 128})]
+    assert batcher.fallback_groups == 1
+    assert batcher.batched_calls == 0
+    assert "batched call of 2 requests failed" in capsys.readouterr().err
+
+
+def test_client_mode_never_initialises_jax(server, tmp_path):
+    """``--client`` streams without touching any JAX backend: with the
+    platform list pointing at a backend that does not exist, any backend
+    initialisation in the client process would fail it."""
+    import os
+    import subprocess
+    import sys
+
+    from audio_processing_tools_tpu.io.audio import write_wav
+
+    x = synth_clip("noise", np.random.default_rng(3), fs=FS, seconds=1.0)
+    wav = tmp_path / "clip.wav"
+    write_wav(str(wav), np.clip(x * 32767, -32768, 32767).astype(np.int16),
+              FS)
+    host, port = server
+    env = dict(os.environ, JAX_PLATFORMS="no_such_backend")
+    r = subprocess.run(
+        [sys.executable, "-m", "audio_processing_tools_tpu.cli.serve",
+         "--client", str(wav), "--host", host, "--port", str(port),
+         "--packet-samples", "4096"],
+        capture_output=True, text=True, timeout=300, env=env,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert json.loads(r.stdout.strip().splitlines()[-1])["eos"] is True

@@ -1,4 +1,4 @@
-"""Streaming denoised-audio output (VERDICT r3 item 3).
+"""Streaming denoised-audio output.
 
 The causal suppressor path of :class:`StreamingRainDetector`
 (``compute_output_audio=True``): gain -> S_hat -> carried OLA-ISTFT, the

@@ -133,7 +133,7 @@ def test_roe_vmapped_sweep_matches_full_engine(rng):
 
 def test_gradient_tuning_improves_detuned_config():
     """gradient_tune_thresholds recovers a detuned config on the hard
-    corpus by SGD instead of grid enumeration (TPU-native addition over
+    corpus by SGD instead of grid enumeration (an addition over
     the reference's grid_search.py; decision semantics pinned to
     rain_frame_classifier.py:230-284 via the shared hard evaluator)."""
     from audio_processing_tools_tpu.tuning.gradient import (

@@ -1,4 +1,4 @@
-"""Mu-law int8 wire format (VERDICT r3 item 4: the H2D-ceiling lever).
+"""Mu-law int8 wire format.
 
 Pins (a) codec round-trip quality, (b) the jax/numpy decode twins, and
 (c) corpus-wide detection parity vs the int16 wire: clip decisions through

@@ -1,17 +1,17 @@
 """Measure distributed-backfill scaling: files/sec at n in {1, 2, 4} procs.
 
-VERDICT r4 item 6: the fleet story needs a measured scaling table past
-n=2.  Runs the real ``cli.backfill`` Gloo flow (same pattern as
+The fleet story needs a measured scaling table past n=2.  Runs the real
+``cli.backfill`` Gloo flow (same pattern as
 ``tests/test_backfill_cli.py``) over a synthetic corpus at 1/2/4
 coordinated processes on the CPU mesh and prints files/sec + parallel
 efficiency per n.
 
-Honest caveat printed with the table: this dev host has ONE CPU core, so
-n>1 measures coordination overhead under full oversubscription, not
+Caveat printed with the table: all processes share one host's CPU cores,
+so n>1 measures coordination overhead under oversubscription, not
 speedup — the number that matters is that aggregate equality holds and
-the overhead is bounded.  On a real v5e-16 slice each process owns its
-own host+chips and the per-host work is embarrassingly parallel
-(DCN only carries the work list).
+the overhead is bounded.  In a deployment each process owns its own card
+and the per-process work is embarrassingly parallel (only the work list
+is shared).
 
 Usage: python tools/bench_backfill_scaling.py [--clips 16] [--sec 2.0]
 """
